@@ -5,7 +5,7 @@
 PY ?= python
 CPU_ENV = JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 
-.PHONY: all native test bench daemon editor dryrun clean
+.PHONY: all native test test-gpu smoke bench daemon editor dryrun clean
 
 all: native test
 
@@ -14,6 +14,14 @@ native:
 
 test:
 	$(PY) -m pytest tests/ -q
+
+# card-only numerics (GPU host; skips elsewhere)
+test-gpu:
+	PS_TEST_PLATFORM=cuda,cpu $(PY) -m pytest -m gpu tests/test_gpu_hw.py -q
+
+# every main path on one GPU, checked; last line {"ok": true, ...}
+smoke:
+	$(PY) chip_smoke.py
 
 bench:
 	$(PY) bench.py
@@ -26,10 +34,12 @@ daemon:
 editor:
 	$(PY) -m particle_simulator_tpu.editor.headless --frames 20
 
-# multi-chip sharding dry run on a virtual 8-device CPU mesh
+# sharded jnp frame program on a virtual 8-device CPU mesh, checked against
+# the single-device frame
 dryrun:
 	$(CPU_ENV) $(PY) -c "import __graft_entry__ as g; g.dryrun_multichip(8); print('dryrun OK')"
 
 clean:
 	$(MAKE) -C native clean
+	rm -rf .jax_cache .smoke_tmp
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

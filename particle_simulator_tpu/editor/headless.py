@@ -1,7 +1,7 @@
 """Headless editor session: the editor's main loop without a window.
 
 The reference editor is a winit/wgpu GUI (particle_editor/src/main.rs); on a
-TPU host there is no display, so this CLI runs the same loop headlessly:
+GPU host there is no display, so this CLI runs the same loop headlessly:
 serve TCP for the engine, send a lattice scene, ingest frames into the
 timeline, optionally render PNGs of the playback, print stats.
 
@@ -79,6 +79,8 @@ def main(argv=None) -> int:
     sent_scene = False
     t_last = time.monotonic()
     deadline = t_last + args.timeout
+    t_sent = None
+    arrivals = []  # monotonic arrival time of each received frame
     while editor.frames_received < args.frames and time.monotonic() < deadline:
         if not sent_scene and backend.is_connected:
             if args.lattice:
@@ -101,13 +103,22 @@ def main(argv=None) -> int:
                     rng=np.random.default_rng(0),
                 )
                 print(f"editor: sent {nx}x{ny} lattice", file=sys.stderr)
+                t_sent = time.monotonic()
             sent_scene = True
         now = time.monotonic()
         editor.tick(now - t_last)
         t_last = now
+        arrivals += [time.monotonic()] * (editor.frames_received - len(arrivals))
         time.sleep(0.002)
 
     stats = editor.stats()
+    stats["frames_received"] = editor.frames_received
+    # the engine echoes the scene first; frame 2 is the first it computed,
+    # so first_frame_s includes the first dispatch's compile
+    if t_sent is not None and len(arrivals) >= 2:
+        stats["first_frame_s"] = arrivals[1] - t_sent
+    if len(arrivals) >= 3:
+        stats["frames_per_s"] = (len(arrivals) - 2) / (arrivals[-1] - arrivals[1])
     if args.render and editor.timeline.frame_count:
         os.makedirs(args.render, exist_ok=True)
         for i in range(editor.timeline.frame_count):

@@ -2,7 +2,7 @@
 
 Functional equivalent of the reference editor's GPU renderer + shader
 (particle_editor/src/graphics.rs, shader.wgsl), re-targeted at headless
-operation (there is no display attached to a TPU host):
+operation (there is no display attached to a GPU host):
 
 - particles render as discs with a **minimum on-screen size in px**
   (shader.wgsl:86-87) so single particles stay visible at any zoom;

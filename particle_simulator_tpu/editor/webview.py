@@ -1,7 +1,7 @@
 """Browser-based interactive editor UI.
 
 The reference editor is a native winit/wgpu/egui app (particle_editor/) — a
-TPU host is headless, so the interactive surface here is a small stdlib HTTP
+compute host is headless, so the interactive surface here is a small stdlib HTTP
 server around the same ``Editor`` core, with the browser doing the GPU work:
 
 - **Rendering**: particles ship to the browser as a compact binary payload
@@ -86,7 +86,7 @@ h4 { margin: 14px 0 4px 0; border-bottom: 1px solid #333; }
 kbd { background: #26263a; padding: 0 4px; border-radius: 3px; }
 </style></head><body>
 <div id="side">
-  <h3>particle simulator (TPU)</h3>
+  <h3>particle simulator (GPU)</h3>
   <div>
     <button id="b_play" onclick="ctl('toggle_play')">play/pause</button>
     <button id="b_loop" onclick="ctl('toggle_loop')">loop</button>
@@ -185,7 +185,7 @@ kbd { background: #26263a; padding: 0 4px; border-radius: 3px; }
     </select></label>
   <label>device
     <select onchange="param('device', parseInt(this.value))">
-      <option value="0" selected>TPU</option>
+      <option value="0" selected>GPU</option>
       <option value="1">CPU Thread Pool</option>
       <option value="2">CPU Main Thread</option>
     </select></label>

@@ -4,7 +4,7 @@ This is the L1 layer of the stack: the self-describing packet the editor and the
 engine exchange. The layout is byte-identical to the reference's
 ``particle_io::{Particle, MiePotentialParams, FrameMetadata, FrameHeader, Frame}``
 (reference: particle_io/src/particle.rs:12-238) so the reference editor can talk to
-the TPU engine unchanged:
+this engine unchanged:
 
 - packet = 96-byte header + ``particle_count`` x 20-byte particles
 - header = start signature ``36 bc e9 bd`` | u32 particle_count | 80-byte metadata
@@ -101,18 +101,18 @@ class DataStructure(enum.IntEnum):
 class Device(enum.IntEnum):
     """Backend selector (reference: particle_io/src/particle.rs:80-109).
 
-    For the TPU engine, ``GPU`` means "the accelerator" (the TPU chip); the two CPU
+    For this engine, ``GPU`` means "the accelerator" (an NVIDIA GPU); the two CPU
     variants select the JAX CPU backend, preserving the reference's property that
     the same kernel logic runs on every device.
     """
 
-    GPU = 0  # accelerator (TPU)
+    GPU = 0  # the accelerator
     CPU_THREAD_POOL = 1
     CPU_MAIN_THREAD = 2
 
     @property
     def display_name(self) -> str:
-        return ("TPU", "CPU Thread Pool", "CPU Main Thread")[int(self)]
+        return ("GPU", "CPU Thread Pool", "CPU Main Thread")[int(self)]
 
 
 BOLTZMANN = 1.380649e-23  # J/K

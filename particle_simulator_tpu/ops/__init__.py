@@ -1,1 +1,1 @@
-"""Hot-path device kernels (Pallas TPU)."""
+"""Device-side helpers outside the physics step (the dense-pack readback)."""

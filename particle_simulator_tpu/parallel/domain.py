@@ -1,21 +1,21 @@
-"""Multi-chip spatial domain decomposition: shard_map + ICI halo exchange.
+"""Multi-device spatial domain decomposition: shard_map + halo exchange.
 
 The reference is single-GPU; its scale-out axis is the uniform bucket grid
-(cuda_simulator/src/kernel_bucket.cuh). The TPU-native scale-out shards that
-grid by 2D spatial domain across a device mesh:
+(cuda_simulator/src/kernel_bucket.cuh). Here that grid shards by 2D spatial
+domain across a device mesh:
 
 - the (BY, BX, CAP) bucket grid is sharded ``P("dy", "dx", None)`` over a
-  ``Mesh(devices, ("dy", "dx"))`` — each chip owns a rectangle of buckets;
-- before every step, each chip exchanges a **one-bucket halo ring** with its
-  mesh neighbors via ``lax.ppermute`` (rides ICI). This is the direct analog of
-  the reference's 3x3 bucket neighborhood crossing a shard edge;
-- the pull-based rebucket pass (bucket_move_direct_halo / the pallas place
-  variant) doubles as particle
+  ``Mesh(devices, ("dy", "dx"))`` — each device owns a rectangle of buckets;
+- before every step, each device exchanges a **one-bucket halo ring** with
+  its mesh neighbors via ``lax.ppermute`` (NCCL over NVLink between GPUs of
+  one host). This is the direct analog of the reference's 3x3 bucket
+  neighborhood crossing a shard edge;
+- the pull-based rebucket pass (bucket_move_direct_halo) doubles as particle
   **migration**: a particle that drifts into a neighbor's domain is pulled by
   that neighbor from the exchanged halo, and dropped locally by the owner's own
   move pass. No extra migration protocol is needed because the reference's move
   cadence (every 16 steps) already bounds drift to one bucket;
-- boundary chips see tombstone halos (the box walls), matching the
+- boundary devices see tombstone halos (the box walls), matching the
   single-device edge clamp.
 
 Halo exchange is two-phase (x then y) so corner buckets propagate through the
@@ -23,14 +23,14 @@ edge neighbors — the y-phase ships rows that already contain the x-halo.
 ``lax.ppermute`` zero-fills devices that receive nothing (the mesh boundary);
 we ship ``ty + 1`` so that zero-fill decodes to the tombstone ``ty = -1``.
 
-Single-device semantics are preserved exactly: tests check a sharded run on an
-8-virtual-device CPU mesh is bit-identical to the single-chip bucket path.
+Single-device semantics are preserved: tests check a sharded run on 2-8
+virtual CPU devices against the single-device bucket path (bucket layout
+exact, positions and velocities within f32 summation-order ulps).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +43,7 @@ from particle_simulator_tpu.physics.bucket import (
     GridConfig,
     bucket_move_direct_halo,
     bucket_step_nbr,
+    chunked_frame_schedule,
     stack9,
 )
 
@@ -54,8 +55,8 @@ def factor_mesh(n_devices: int) -> tuple[int, int]:
 
     Bucket counts are powers of two (bucket id = coordinate top bits), so the
     x mesh axis must divide a power of two exactly; the y axis may be any
-    size — rows can be padded (pad_rows_for_mesh). Powers of two (the TPU pod
-    case) split near-square; odd factors all land on y."""
+    size — rows can be padded (pad_rows_for_mesh). Powers of two split
+    near-square; odd factors all land on y."""
     nx = 1
     while n_devices % (nx * 2) == 0 and (nx * 2) ** 2 <= n_devices:
         nx *= 2
@@ -149,184 +150,6 @@ def exchange_halo(state: ParticleState, ny: int, nx: int) -> ParticleState:
     return ParticleState(x, y, vx, vy, typ - 1)
 
 
-def _ship_pair(a, axis: int, axis_name: str, n: int, is_ty: bool,
-               lo_idx: int = 0, hi_idx: int | None = None):
-    """Ship this field's two source slices along ``axis`` to both neighbors;
-    returns (lo_halo, hi_halo) — what THIS device receives (its low-side
-    halo = the previous device's ``hi_idx`` slice, and vice versa). The
-    source slices are the array edges by default; a padded grid passes its
-    INTERIOR edges (lo_idx=1, hi_idx=len-2). ``is_ty`` applies the ty+1
-    encode around the ppermute so mesh-boundary zero-fill decodes to the
-    tombstone -1. Encoding only the shipped slice is bit-identical to
-    encoding the whole field first (slice commutes with the elementwise +1)
-    and skips a full-grid read/write per exchange."""
-    if hi_idx is None:
-        hi_idx = a.shape[axis] - 1
-    lo_edge = jax.lax.slice_in_dim(a, lo_idx, lo_idx + 1, axis=axis)
-    hi_edge = jax.lax.slice_in_dim(a, hi_idx, hi_idx + 1, axis=axis)
-    if is_ty:
-        lo_edge = lo_edge + 1
-        hi_edge = hi_edge + 1
-    lo_halo = _shift_from_prev(hi_edge, axis_name, n)
-    hi_halo = _shift_from_next(lo_edge, axis_name, n)
-    if is_ty:
-        lo_halo = lo_halo - 1
-        hi_halo = hi_halo - 1
-    return lo_halo, hi_halo
-
-
-_IS_TY = (False, False, False, False, True)  # ParticleState field order
-_ALL_FIELDS = (0, 1, 2, 3, 4)
-# All the step kernel reads of its halo: candidate passes use x/y/ty only —
-# ops/bucket_pallas.py _step_block never reads a neighbor's vx/vy (the Mie /
-# wall / cursor forces are position-only, like the reference's particle.cuh).
-# Velocities matter only to the MOVE pass, which pulls whole particles.
-_POS_FIELDS = (0, 1, 4)
-_VEL_FIELDS = (2, 3)
-
-
-def pad_x_state(state: ParticleState, nx: int, xpad: int = 1) -> ParticleState:
-    """(ly, lx, cap) -> (ly, lx+2*xpad, cap): concat the x-neighbor halo
-    columns, with ``xpad - 1`` TOMBSTONE margin columns outside each halo.
-    The one whole-state copy of the padded-layout scheme — paid when a run
-    of steps begins (after a move), not per step.
-
-    xpad > 1 exists purely to make the padded lane count divisible into the
-    equal 128-multiple chunks ``bucket_step_pallas``'s lane-chunk column
-    skip requires (r3 forfeited that skip on the sharded path — VERDICT
-    item 3): the extra columns are permanently dead (ty = -1), so the kernel
-    rejects them as pair candidates and their chunk-liveness flags never
-    fire. The exchanged halo stays ONE bucket wide either way (the move
-    cadence bounds drift to one bucket)."""
-    out = []
-    for a, is_ty in zip(state, _IS_TY):
-        lo, hi = _ship_pair(a, 1, AXIS_X, nx, is_ty)
-        cols = [lo, a, hi]
-        if xpad > 1:
-            m = jnp.full(
-                (a.shape[0], xpad - 1) + a.shape[2:],
-                -1 if is_ty else 0,
-                a.dtype,
-            )
-            cols = [m, *cols, m]
-        out.append(jnp.concatenate(cols, axis=1))
-    return ParticleState(*out)
-
-
-def refresh_x_cols(
-    sp: ParticleState, nx: int, xpad: int = 1,
-    fields: tuple[int, ...] = _ALL_FIELDS,
-    form: str | None = None,
-) -> ParticleState:
-    """Refresh the halo columns of an x-padded (ly, lx+2*xpad, cap) grid in
-    place: ship the two INTERIOR edge columns (xpad and lx+xpad-1) to the
-    x-neighbors and write what arrives into the halo columns (xpad-1 and
-    lx+xpad). Two one-column copies per step instead of the whole-state
-    concat + interior re-slice. Tombstone margin columns (xpad > 1) are
-    never touched — they stay dead.
-
-    ``fields`` selects which ParticleState fields to refresh; the rest pass
-    through untouched. The sharded step refreshes ``_POS_FIELDS`` only (the
-    force pass never reads a halo particle's velocity) and tops up
-    ``_VEL_FIELDS`` once per move cadence — 6 instead of 10 halo-column
-    collectives+writes per step.
-
-    ``form`` picks the write op (default: env PS_SHARD_REFRESH or "select"):
-    - "dus": two dynamic-update-slices per field. The r4 HLO census
-      (BASELINE.md) attributed the bulk of the sharded program's per-step
-      data movement to these — a DUS whose operand is a pallas-call output
-      cannot fuse, so each refresh materializes a full-grid copy.
-    - "select": one elementwise broadcast+where per field. Values are
-      identical (the mask writes exactly the two halo columns); being
-      elementwise, the refresh can ride the NEXT step's pallas input fusion
-      (allow_input_fusion already covers the ext()/halo producers) instead
-      of materializing in HBM."""
-    if form is None:
-        form = os.environ.get("PS_SHARD_REFRESH", "select")
-    w = sp.x.shape[1]
-    if form == "select":
-        # (1, w, 1) lane masks for the two halo columns, broadcast over
-        # rows and slots; computed once per call, shared by all fields
-        col = jnp.arange(w, dtype=jnp.int32)[None, :, None]
-        m_lo = col == (xpad - 1)
-        m_hi = col == (w - xpad)
-    out = []
-    for i, (a, is_ty) in enumerate(zip(sp, _IS_TY)):
-        if i not in fields:
-            out.append(a)
-            continue
-        lo_halo, hi_halo = _ship_pair(a, 1, AXIS_X, nx, is_ty,
-                                      lo_idx=xpad, hi_idx=a.shape[1] - 1 - xpad)
-        if form == "select":
-            a = jnp.where(m_lo, lo_halo, jnp.where(m_hi, hi_halo, a))
-        else:
-            a = jax.lax.dynamic_update_slice_in_dim(a, lo_halo, xpad - 1, axis=1)
-            a = jax.lax.dynamic_update_slice_in_dim(
-                a, hi_halo, a.shape[1] - xpad, axis=1)
-        out.append(a)
-    return ParticleState(*out)
-
-
-def x_pad_for_chunks(lx: int, cap: int, lane_chunks: int) -> int | None:
-    """Smallest per-side x-pad making a (ly, lx + 2*xpad, cap) grid valid for
-    ``bucket_step_pallas(lane_chunks=C)``: padded width divisible by C with a
-    128-multiple lane-chunk width. None when no xpad within the waste budget
-    (2*xpad <= lx/4) works — the caller falls back to a smaller C or 1."""
-    C = int(lane_chunks)
-    if C == 1:
-        return 1
-    for xpad in range(1, max(2, lx // 8) + 1):
-        w = lx + 2 * xpad
-        if w % C == 0 and (w * cap // C) % 128 == 0:
-            return xpad
-    return None
-
-
-def ship_edge_rows(
-    sp: ParticleState, ny: int, fields: tuple[int, ...] = _ALL_FIELDS
-) -> tuple[ParticleState, ParticleState]:
-    """The (1, lx+2, cap) top/bottom neighbor rows of an x-padded grid whose
-    halo columns are CURRENT. The shipped rows include those columns, so each
-    device's top/bottom row carries its y-neighbor's x-halo corners — the
-    same "y-phase ships x-padded rows" corner rule as ``exchange_halo``.
-
-    ``fields`` selects which ParticleState fields actually ship; unshipped
-    fields come back as tombstone/zero placeholder rows. The sharded STEP
-    ships ``_POS_FIELDS`` only — ``bucket_step_pallas``'s packed halo stack
-    holds x/y/ty rows and nothing reads an edge row's velocity — cutting the
-    per-step edge-row collectives from 10 to 6; the MOVE ships all five
-    (migration pulls whole particles)."""
-    tops, bottoms = [], []
-    for i, (a, is_ty) in enumerate(zip(sp, _IS_TY)):
-        if i in fields:
-            top, bottom = _ship_pair(a, 0, AXIS_Y, ny, is_ty)
-        else:
-            top = bottom = jnp.full((1,) + a.shape[1:], -1 if is_ty else 0,
-                                    a.dtype)
-        tops.append(top)
-        bottoms.append(bottom)
-    return ParticleState(*tops), ParticleState(*bottoms)
-
-
-def exchange_halo_x_rows(
-    state: ParticleState, ny: int, nx: int
-) -> tuple[ParticleState, ParticleState, ParticleState]:
-    """Halo exchange for the Pallas step: (ly, lx, cap) -> the x-padded grid
-    (ly, lx+2, cap) plus the (1, lx+2, cap) top/bottom neighbor rows.
-
-    Produces bit-identical data to ``exchange_halo`` followed by slicing the
-    interior rows and the two edge rows back out — without materializing the
-    (ly+2, lx+2) y-concat or re-slicing the (ly, lx+2) interior (two full
-    copies of the local state per step, the bulk of the 15.7% 1x1-mesh shard
-    overhead BASELINE.md measured for the r3 pre-copy-light runner). The
-    sharded step itself goes further and keeps the grid PERSISTENTLY
-    x-padded across a step run (pad_x_state / refresh_x_cols /
-    ship_edge_rows); this composition remains for tests and one-shot use."""
-    xp = pad_x_state(state, nx)
-    top, bottom = ship_edge_rows(xp, ny)
-    return xp, top, bottom
-
-
 # ---------------------------------------------------------------------------
 # sharded frame runner
 # ---------------------------------------------------------------------------
@@ -337,232 +160,13 @@ def _local_frame(
     cfg: GridConfig,
     ny: int,
     nx: int,
-    kernel: str = "jnp",
-    lane_chunks: int = 1,
 ) -> ParticleState:
     """Per-device body: steps_per_frame physics steps with halo exchange before
-    each step and a migration/rebucket pass on the reference's cadence.
-
-    ``kernel="pallas"`` threads the local grid through the schedule
-    PERSISTENTLY x-padded (ly, lx+2, cap): per step only the two halo
-    columns refresh (ppermute + in-place column writes) and two x-padded
-    edge rows ship; the whole-state pad/unpad copies happen at move cadence
-    (every 16 steps) and at the frame boundary. The halo columns' kernel
-    outputs are recomputed waste (2/lx, sub-percent at production shard
-    sizes) overwritten by the refresh — the price of the VMEM-resident
-    force pass on every chip.
-
-    ``lane_chunks`` = C > 1 brings the single-chip runner's lane-chunk column
-    skip (+47% on the 1M editor-drawn lattice, BASELINE.md) to the sharded
-    path: the x-pad is widened with tombstone margin columns until the padded
-    lane count divides into equal 128-multiple chunks (x_pad_for_chunks), and
-    C is handed straight to ``bucket_step_pallas`` — whose chunk machinery is
-    bit-identical to the unchunked kernel. Infeasible C values fall back
-    (8 -> 4 -> 2 -> 1) per this mesh's local width.
-    """
+    each step and a migration/rebucket pass on the reference's cadence."""
     ly = state.x.shape[0]
     lx = state.x.shape[1]
     row_offset = jax.lax.axis_index(AXIS_Y).astype(jnp.int32) * ly
     col_offset = jax.lax.axis_index(AXIS_X).astype(jnp.int32) * lx
-    interpret = jax.default_backend() != "tpu"
-
-    def nbr_of(s):
-        return stack9(exchange_halo(s, ny, nx))
-
-    # chunked cadence, identical op sequence to the reference's per-step
-    # `if i % k == 1: move` schedule without a branch per step; unrolled
-    # chunks only on real TPU (virtual CPU meshes prefer the small trace)
-    from particle_simulator_tpu.physics.bucket import chunked_frame_schedule
-
-    unroll = jax.default_backend() == "tpu"
-
-    if kernel == "pallas":
-        # The grid threads through the schedule PERSISTENTLY x-padded
-        # (ly, lx+2, cap): the x-halo columns join the kernel's lane axis and
-        # the y-halo rows ride its packed edge-row input, so the local grid
-        # keeps its 8/16-row blocking (VERDICT r1: production shards like
-        # 128x4096 must NOT fall back to a whole-array VMEM block). Per step
-        # only the two halo COLUMNS are refreshed (refresh_x_cols) and two
-        # edge ROWS shipped — the whole-state x-concat + interior re-slice
-        # that a per-step exchange pays (the bulk of the measured 15.7%
-        # 1x1-mesh shard overhead) happens only at move cadence.
-        from particle_simulator_tpu.ops.bucket_pallas import (
-            bucket_move_pallas_halo,
-            bucket_step_pallas,
-        )
-
-        # resolve the lane-chunk split against this mesh's LOCAL width:
-        # fall back to coarser splits (then 1) when no affordable x-pad
-        # makes the padded lane count chunk-divisible
-        C, xpad = 1, 1
-        for cand in (c for c in (lane_chunks, 8, 4, 2) if c <= lane_chunks):
-            pad = x_pad_for_chunks(lx, cfg.cap, cand)
-            if pad is not None:
-                C, xpad = cand, pad
-                break
-
-        # default "refs" (r5): chip A/B at the 1M sharded user scene read
-        # 100.4 steps/s vs 83.9-85.2 for select/dus (queue r5d vs r5c) —
-        # the in-kernel splice removes the whole-grid per-step refresh
-        # write; hw numerics suite green under refs on the real chip
-        form = os.environ.get("PS_SHARD_REFRESH", "refs")
-        w = lx + 2 * xpad
-        cap = cfg.cap
-        refs_ok = form == "refs" and 4 * cap <= w * cap
-        if refs_ok and C > 1:
-            # the in-kernel splice needs the halo columns inside the EDGE
-            # lane-chunks' windows only (bucket_step_pallas validates the
-            # same bound); fall back to the select form otherwise
-            W = w * cap // C
-            kpad = max(128, 2 * cap)
-            refs_ok = (xpad - 1) * cap + cap <= W - kpad and \
-                (w - xpad) * cap >= (C - 1) * W + kpad
-
-        if refs_ok:
-            # "refs" refresh form: never rewrite the halo columns in HBM
-            # between moves. Per step the fresh x/y neighbor columns ride a
-            # small (ly, 4*segw) ref that the kernel splices over the
-            # halo-column lanes in VMEM; ty (and the flags/omax reduces that
-            # read it) needs nothing — ty is invariant between moves, so the
-            # HBM halo-column ty set by pad_x_state stays current. vx/vy are
-            # topped up at move cadence as before. This removes the
-            # whole-grid refresh write (select/dus forms) from the per-step
-            # path — the r4 HLO census's dominant data movement.
-            segw = 128 if w * cap >= 512 and cap <= 128 else cap
-            s0 = (xpad - 1) * cap
-            s1 = (w - xpad) * cap
-
-            def fresh_cols(sp):
-                ly_ = sp.x.shape[0]
-
-                def seg(v):
-                    v2 = v.reshape(ly_, cap)
-                    if segw > cap:
-                        v2 = jnp.pad(v2, ((0, 0), (0, segw - cap)))
-                    return v2
-
-                lo_x, hi_x = _ship_pair(sp.x, 1, AXIS_X, nx, False,
-                                        lo_idx=xpad, hi_idx=w - 1 - xpad)
-                lo_y, hi_y = _ship_pair(sp.y, 1, AXIS_X, nx, False,
-                                        lo_idx=xpad, hi_idx=w - 1 - xpad)
-                return jnp.concatenate(
-                    [seg(lo_x), seg(hi_x), seg(lo_y), seg(hi_y)], axis=1
-                )
-
-            def patch_row(row2d, crow, seg_lo, seg_hi):
-                lo = crow[:, seg_lo * segw : seg_lo * segw + cap]
-                hi = crow[:, seg_hi * segw : seg_hi * segw + cap]
-                return jnp.concatenate(
-                    [row2d[:, :s0], lo, row2d[:, s0 + cap : s1], hi,
-                     row2d[:, s1 + cap :]], axis=1,
-                )
-
-            def step(sp):
-                ly_ = sp.x.shape[0]
-                cols = fresh_cols(sp)
-                # edge rows: patch OUR OWN edge rows' halo-column lanes with
-                # the fresh columns BEFORE shipping — the shipped rows then
-                # carry current corners (the "y-phase ships x-padded rows"
-                # corner rule, without the HBM refresh that used to keep the
-                # row source current)
-                tops, bottoms = [], []
-                for idx, (a, is_ty) in enumerate(zip(sp, _IS_TY)):
-                    if idx not in _POS_FIELDS:
-                        ph = jnp.full((1,) + a.shape[1:], -1 if is_ty else 0,
-                                      a.dtype)
-                        tops.append(ph)
-                        bottoms.append(ph)
-                        continue
-                    a2 = a.reshape(ly_, w * cap)
-                    r0 = a2[0:1]
-                    r1 = a2[ly_ - 1 : ly_]
-                    if idx == 0:
-                        r0 = patch_row(r0, cols[0:1], 0, 1)
-                        r1 = patch_row(r1, cols[ly_ - 1 : ly_], 0, 1)
-                    elif idx == 1:
-                        r0 = patch_row(r0, cols[0:1], 2, 3)
-                        r1 = patch_row(r1, cols[ly_ - 1 : ly_], 2, 3)
-                    if is_ty:
-                        r0 = r0 + 1
-                        r1 = r1 + 1
-                    lo_halo = _shift_from_prev(r1, AXIS_Y, ny)
-                    hi_halo = _shift_from_next(r0, AXIS_Y, ny)
-                    if is_ty:
-                        lo_halo = lo_halo - 1
-                        hi_halo = hi_halo - 1
-                    tops.append(lo_halo.reshape(1, w, cap))
-                    bottoms.append(hi_halo.reshape(1, w, cap))
-                top = ParticleState(*tops)
-                bottom = ParticleState(*bottoms)
-                return bucket_step_pallas(
-                    sp, p, interpret=interpret, edge_rows=(top, bottom),
-                    lane_chunks=C, halo_cols=cols, col_xpad=xpad,
-                )
-
-            move_refresh_fields = (0, 1, 2, 3)  # x/y stale too; ty current
-        else:
-
-            def step(sp):
-                # positions + ty only: the force pass never reads a
-                # neighbor's velocity, so per step the collectives that ride
-                # ICI stay position-only; the ty refresh is skipped outright
-                # (ty is invariant between moves — the pad_x_state columns
-                # stay current), so per step 10 collectives instead of 20
-                top, bottom = ship_edge_rows(sp, ny, fields=_POS_FIELDS)
-                out = bucket_step_pallas(sp, p, interpret=interpret,
-                                         edge_rows=(top, bottom),
-                                         lane_chunks=C)
-                # the kernel's outputs for the halo columns are stale
-                # recompute; overwrite x/y with the x-neighbors' fresh
-                # interior edges (vx/vy stay stale between moves, invisible
-                # to interior outputs; ty never changes between moves)
-                return refresh_x_cols(out, nx, xpad=xpad, fields=(0, 1),
-                                      form=form)
-
-            move_refresh_fields = _VEL_FIELDS
-
-        # Migration/rebucket: the direct shard-aware pass (elementwise ranks,
-        # no argsort over the 9*CAP neighborhood axis — ARCHITECTURE.md
-        # section 4 measured the sort-based pass at ~13x the direct one at
-        # 1M) + the pull-place kernel (no XLA scatter), the same op profile
-        # as the single-chip bucket_move_pallas.
-        def move(sp):
-            # (ly+2, lx+2) halo grid from the padded state's own CURRENT
-            # x-halo columns plus freshly shipped edge rows — bit-identical
-            # to exchange_halo on the interior (two-phase corners ride the
-            # x-padded rows), one y-concat instead of x-concat + y-concat.
-            # Tombstone margin columns (xpad > 1) are sliced off first: the
-            # move kernel's halo layout is exactly one column per side.
-            # Migration pulls WHOLE particles, so top up every halo-column
-            # field the per-step path left stale: vx/vy always; also x/y
-            # under the "refs" form (which never writes halo columns back
-            # to HBM between moves). ty is invariant between moves — the
-            # pad_x_state columns are still current.
-            sp = refresh_x_cols(sp, nx, xpad=xpad, fields=move_refresh_fields,
-                                form="select")
-            if xpad > 1:
-                sp = ParticleState(*(a[:, xpad - 1 : a.shape[1] - (xpad - 1)]
-                                     for a in sp))
-            top, bottom = ship_edge_rows(sp, ny)
-            halo = ParticleState(*(
-                jnp.concatenate([t, a, b], axis=0)
-                for t, a, b in zip(top, sp, bottom)
-            ))
-            moved = bucket_move_pallas_halo(
-                halo, cfg.bx_log2, cfg.by_log2,
-                row_offset, col_offset, interpret=interpret,
-                # the move kernel rounds its own lane axis (tombstone lanes
-                # appended to a 128-multiple chunk width), so the step's
-                # resolved C carries over without any xpad negotiation
-                lane_chunks=C,
-            )
-            return pad_x_state(moved, nx, xpad=xpad)
-
-        padded = chunked_frame_schedule(
-            pad_x_state(state, nx, xpad=xpad), p.steps_per_frame, cfg.move_every,
-            step, move, unroll=unroll,
-        )
-        return ParticleState(*(a[:, xpad:-xpad] for a in padded))
 
     def move(s):
         return bucket_move_direct_halo(
@@ -571,22 +175,20 @@ def _local_frame(
         )
 
     def step(s):
-        return bucket_step_nbr(s, nbr_of(s), p)
+        return bucket_step_nbr(s, stack9(exchange_halo(s, ny, nx)), p)
 
+    # chunked cadence, identical op sequence to the reference's per-step
+    # `if i % k == 1: move` schedule without a branch per step
     return chunked_frame_schedule(
-        state, p.steps_per_frame, cfg.move_every, step, move, unroll=unroll,
+        state, p.steps_per_frame, cfg.move_every, step, move,
     )
 
 
-def make_sharded_frame_fn(cfg: GridConfig, mesh: Mesh, donate: bool = True,
-                          kernel: str = "jnp", lane_chunks: int = 1):
-    """Build the jitted multi-chip frame runner for a grid config + mesh.
+def make_sharded_frame_fn(cfg: GridConfig, mesh: Mesh, donate: bool = True):
+    """Build the jitted multi-device frame runner for a grid config + mesh.
 
     Returns ``fn(state, p) -> state`` where state is (BY, BX, CAP) sharded
-    ``P("dy", "dx", None)`` and p is replicated. ``kernel`` selects the local
-    step implementation: "jnp" (portable) or "pallas" (TPU VMEM kernel);
-    ``lane_chunks`` > 1 requests the pallas kernel's lane-chunk column skip
-    (bit-identical; falls back per-mesh if the local width can't chunk).
+    ``P("dy", "dx", None)`` and p is replicated.
     """
     ny, nx = mesh.devices.shape
     if cfg.bx % nx:
@@ -597,8 +199,7 @@ def make_sharded_frame_fn(cfg: GridConfig, mesh: Mesh, donate: bool = True,
     # global row index >= cfg.by, are never force-visible (they are
     # tombstoned, and the step kernel rejects tombstoned candidates) and
     # never targeted by the move (targets come from coordinate bits < by).
-    body = functools.partial(_local_frame, cfg=cfg, ny=ny, nx=nx, kernel=kernel,
-                             lane_chunks=lane_chunks)
+    body = functools.partial(_local_frame, cfg=cfg, ny=ny, nx=nx)
     sharded = shard_map(
         body,
         mesh=mesh,
@@ -607,7 +208,5 @@ def make_sharded_frame_fn(cfg: GridConfig, mesh: Mesh, donate: bool = True,
             SimParams(*([P()] * len(SimParams._fields))),
         ),
         out_specs=ParticleState(*([P(AXIS_Y, AXIS_X, None)] * 5)),
-        # pallas_call outputs don't carry varying-mesh-axes metadata yet
-        check_vma=False,
     )
     return jax.jit(sharded, donate_argnums=(0,) if donate else ())

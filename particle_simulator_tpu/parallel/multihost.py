@@ -1,13 +1,13 @@
-"""Multi-host (pod / DCN) scaling scaffolding.
+"""Multi-host scaling scaffolding.
 
 The reference is single-node (its only cluster artifact is a SLURM sbatch
-script, cuda_simulator/job.sh). The TPU-native scale-out beyond one host uses
+script, cuda_simulator/job.sh). Scale-out beyond one host uses
 jax.distributed: every host runs the same engine binary, JAX stitches the
-hosts' chips into one global device set, and the spatial domain decomposition
-(parallel/domain.py) shards the bucket grid over the *global* mesh — halo
-exchanges between co-located chips ride ICI, shard edges that cross hosts
-ride DCN. Host 0 owns the editor TCP connection and the frame
-gather/readback.
+hosts' devices into one global device set, and the spatial domain
+decomposition (parallel/domain.py) shards the bucket grid over the *global*
+mesh — halo exchanges between GPUs of one host ride NVLink, shard edges
+that cross hosts ride the data-center network. Host 0 owns the editor TCP
+connection and the frame gather/readback.
 
 Single-host runs need none of this; ``init_distributed`` is a no-op when the
 coordinator env vars are absent. The production entry point is
@@ -21,7 +21,7 @@ Multi-host hardware is not available in this environment, so CI exercises
 the REAL multi-process path on CPU two ways (tests/test_parallel.py): a
 2-process sharded frame bit-identity check, and a full editor + 2-daemon
 end-to-end run over a 4-virtual-device global mesh (gloo collectives over a
-DCN-style coordinator).
+local coordinator).
 """
 
 from __future__ import annotations
@@ -36,14 +36,13 @@ from particle_simulator_tpu.parallel.domain import grid_sharding, make_mesh
 
 
 def init_distributed() -> bool:
-    """Initialize jax.distributed from standard env vars.
+    """Initialize jax.distributed from env vars.
 
-    Reads ``PS_TPU_COORDINATOR`` (host:port of process 0),
-    ``PS_TPU_NUM_PROCESSES`` and ``PS_TPU_PROCESS_ID``; falls back to JAX's
-    own autodetection (TPU pod metadata) when only ``PS_TPU_DISTRIBUTED=1``
-    is set. Returns True if a multi-process runtime was initialized.
+    Reads ``PS_COORDINATOR`` (host:port of process 0), ``PS_NUM_PROCESSES``
+    and ``PS_PROCESS_ID``. Returns True if a multi-process runtime was
+    initialized, False (a no-op) when ``PS_COORDINATOR`` is unset.
     """
-    coord = os.environ.get("PS_TPU_COORDINATOR")
+    coord = os.environ.get("PS_COORDINATOR")
     if coord:
         # jax.default_backend() must NOT be consulted here — it would
         # initialize the XLA backend before jax.distributed.initialize()
@@ -52,18 +51,15 @@ def init_distributed() -> bool:
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=coord,
-            num_processes=int(os.environ["PS_TPU_NUM_PROCESSES"]),
-            process_id=int(os.environ["PS_TPU_PROCESS_ID"]),
+            num_processes=int(os.environ["PS_NUM_PROCESSES"]),
+            process_id=int(os.environ["PS_PROCESS_ID"]),
         )
-        return True
-    if os.environ.get("PS_TPU_DISTRIBUTED") == "1":
-        jax.distributed.initialize()  # pod autodetection
         return True
     return False
 
 
 def global_mesh():
-    """2D ("dy","dx") mesh over every chip of every host (jax.devices() is
+    """2D ("dy","dx") mesh over every device of every host (jax.devices() is
     global after init_distributed)."""
     return make_mesh(jax.devices())
 
@@ -93,8 +89,7 @@ def shard_state_global(state: ParticleState, mesh) -> ParticleState:
 
 def gather_global(state: ParticleState) -> ParticleState:
     """Fetch a globally-sharded ParticleState to host numpy on EVERY process
-    (host 0 uses it for the editor readback; a cross-host allgather rides
-    DCN)."""
+    (host 0 uses it for the editor readback; a cross-host allgather)."""
     from jax.experimental import multihost_utils
 
     return ParticleState(

@@ -8,15 +8,19 @@ bit shift, and forces only consider the 3x3 neighboring buckets. Rebucketing is
 for particles that now belong to it, keeping the first ``CAP`` in scan order and
 silently dropping overflow (kernel_bucket.cuh:5-39; drop at :30-31).
 
-TPU-native formulation — everything static-shaped and vectorized:
+Formulation — everything static-shaped and vectorized:
 
 - state lives as ``(BY, BX, CAP)`` SoA grids;
 - the 3x3 gather is 9 shifted views stacked to ``(BY, BX, 9*CAP)`` (a halo pad
   of tombstones replaces the reference's edge-clamp branches);
-- the force pass is one fused ``(BY, BX, CAP, 9*CAP)`` VPU pair tile;
-- the move pass ranks candidates with a stable argsort over the same scan order
-  the reference uses (y outer, x inner, slot innermost), reproducing its
-  keep-first-CAP overflow semantics exactly;
+- the force pass is one fused ``(BY, BX, CAP, 9*CAP)`` elementwise pair tile
+  reduced over its last axis;
+- the move pass places every candidate in the reference's pull scan order
+  (y outer, x inner, slot innermost), reproducing its keep-first-CAP overflow
+  semantics exactly: ``bucket_move`` by a stable argsort (the readable
+  reference), ``bucket_move_direct`` by elementwise ranks and one scatter
+  (the pass the frame runners use), ``bucket_move_sorted`` by one global key
+  sort — all three bit-identical;
 - pull-based movement only ever references the 3x3 neighborhood, which is what
   makes the multi-chip domain decomposition a pure halo-exchange problem
   (parallel/domain.py).
@@ -510,10 +514,10 @@ def bucket_move_sorted(state: ParticleState) -> ParticleState:
     key = (tgt * 9 + block) * cap + slot
     key = jnp.where(pullable, key, jnp.int32(2**31 - 1))  # dropped -> end
 
-    # payloads ride the sort network directly: random-index gathers after a
-    # (key, idx)-only sort measure ~5x slower on TPU than the multi-operand
-    # sort. tgt and pullable are recovered from the sorted key instead of
-    # riding along (2 fewer operands through the network).
+    # payloads ride the sort network directly instead of a (key, idx)-only
+    # sort followed by five random-index gathers. tgt and pullable are
+    # recovered from the sorted key instead of riding along (2 fewer operands
+    # through the network).
     key_s, x_s, y_s, vx_s, vy_s, ty_s = jax.lax.sort(
         (key, flat.x, flat.y, flat.vx, flat.vy, flat.ty), num_keys=1
     )
@@ -541,51 +545,15 @@ def bucket_move_sorted(state: ParticleState) -> ParticleState:
     return out.reshape((by, bx, cap))
 
 
-def chunked_frame_schedule(state, steps, move_every: int, step, move,
-                           unroll: bool = True, enter=None, exit=None):
+def chunked_frame_schedule(state, steps, move_every: int, step, move):
     """``steps`` physics steps with ``move`` before steps 1, 1+k, 1+2k, … —
     the exact op sequence of the reference's per-step schedule
     (kernel_bucket.cuh:181-206, `if i % k == 1: move`) without paying a
-    branch per step (the naive cond measured ~15% of frame time at 1M).
-    With ``unroll=True`` full chunks unroll their ``move_every`` steps
-    statically so loop bookkeeping is per chunk; a dynamic-length trailing
-    chunk (and the leading step 0) keep ``steps`` a traced value — live
-    steps_per_frame edits never recompile. ``unroll=False`` instead runs one
-    unified chunk loop with a dynamic inner step loop — the same sequence
-    with exactly ONE instantiation of ``step``/``move`` in the jaxpr, which
-    matters both for interpret-mode test time (pallas interpret lowering
-    pays per call site) and for buffer liveness at huge grids.
-
-    ``enter``/``exit`` bracket each chunk's STEP RUN (not the move): ``step``
-    receives ``enter(state)``'s value and ``exit`` converts the run's result
-    back — the hook for step implementations that thread an alternate layout
-    (e.g. the persistent pad-extended lane-chunk state, whose whole-grid
-    ext/unext copies are then paid once per chunk instead of per step). The
-    identity defaults keep every existing caller unchanged."""
-    ident = lambda s: s
-    enter = enter or ident
-    exit = exit or ident
-    if unroll:
-        n_full = jnp.maximum(0, (steps - 1) // move_every)
-        rem = jnp.maximum(0, steps - 1 - n_full * move_every)
-
-        def full_chunk(c, s):
-            s = move(s)
-            e = enter(s)
-            for _ in range(move_every):
-                e = step(e)
-            return exit(e)
-
-        def partial_chunk(s):
-            s = move(s)
-            e = jax.lax.fori_loop(0, rem, lambda j, t: step(t), enter(s))
-            return exit(e)
-
-        state = jax.lax.cond(
-            steps >= 1, lambda s: exit(step(enter(s))), ident, state
-        )
-        state = jax.lax.fori_loop(0, n_full, full_chunk, state)
-        return jax.lax.cond(rem > 0, partial_chunk, ident, state)
+    branch per step: one chunk loop with a dynamic inner step loop, so
+    ``step``/``move`` appear once in the jaxpr (small traces, fast compiles)
+    and ``steps`` stays a traced value — live steps_per_frame edits never
+    recompile. (Unrolling each chunk's steps ran the 1M dense grid 46%
+    slower on an H100 and compiled 4x slower; PERF.md, Findings.)"""
 
     def chunk(c, s):
         # chunk 0 = the lone leading step; chunks 1.. = move + <= move_every
@@ -596,28 +564,20 @@ def chunked_frame_schedule(state, steps, move_every: int, step, move,
             jnp.minimum(steps, 1),
             jnp.minimum(move_every, steps - 1 - (c - 1) * move_every),
         )
-        e = jax.lax.fori_loop(0, k, lambda j, t: step(t), enter(s))
-        return exit(e)
+        return jax.lax.fori_loop(0, k, lambda j, t: step(t), s)
 
     n_chunks = jnp.where(steps >= 1, (steps + move_every - 2) // move_every + 1, 0)
     return jax.lax.fori_loop(0, n_chunks, chunk, state)
 
 
-def run_frame_bucket(state: ParticleState, p: SimParams, move_every: int = 16,
-                     unroll: bool | None = None) -> ParticleState:
+def run_frame_bucket(state: ParticleState, p: SimParams,
+                     move_every: int = 16) -> ParticleState:
     """One frame = steps_per_frame bucket steps with a rebucket pass every
     ``move_every`` steps, scheduled like bucket_kernel_run_async
     (kernel_bucket.cuh:181-206): first move lands before the 2nd step of the
-    frame, then every ``move_every`` steps after.
-
-    ``unroll=None`` unrolls chunks only on a TPU default backend; callers
-    that place this on a specific device (the engine's CPU fallback path on
-    a TPU host) must pass it explicitly — inside jit the arrays are tracers,
-    so the target device can't be inferred here, and the unrolled trace is
-    an XLA-CPU compile-time blowup at large grids."""
-    if unroll is None:
-        unroll = jax.default_backend() == "tpu"
+    frame, then every ``move_every`` steps after. The rebucket is
+    ``bucket_move_direct``."""
     return chunked_frame_schedule(
-        state, p.steps_per_frame, move_every, lambda s: bucket_step(s, p), bucket_move,
-        unroll=unroll,
+        state, p.steps_per_frame, move_every, lambda s: bucket_step(s, p),
+        bucket_move_direct,
     )

@@ -9,7 +9,7 @@ pool), but its intra-op thread pool is process-global with no per-dispatch
 knob, so a "main thread" device would silently be the pool again (the r2
 VERDICT flagged exactly this).
 
-The TPU-native analog of ``__host__ __device__``: the kernel functions in
+The JAX analog of ``__host__ __device__``: the kernel functions in
 physics/mie.py, physics/step.py and physics/bucket.py are pure elementwise
 array math whose only backend dependence is the ``jnp`` / ``jax.lax`` module
 globals. This module re-binds the very same code objects
@@ -20,7 +20,7 @@ One kernel source, two execution modes, like the reference.
 
 Numerics: identical formulas and operation order; f32 throughout. Reduction
 trees may differ from XLA's fused loops (``np.sum`` is a straight
-accumulation), so trajectories agree to the same envelope the CPU/TPU paths
+accumulation), so trajectories agree to the same envelope the CPU/GPU paths
 are held to — the integer rebucket pass has no float accumulation and is
 bit-identical (enforced by tests/test_bucket.py alongside the other three
 move implementations).
@@ -126,9 +126,9 @@ host_allpairs_step = _STEP["allpairs_step"]
 # ---------------------------------------------------------------------------
 # Sparse bucket pass: O(occupied buckets), like the reference's per-particle
 # loop (kernel_bucket.cuh:137-140 iterates particle_count, not grid slots).
-# The dense TPU formulation computes every grid slot — fine for a VPU, but a
-# sequential host pass over a 64x64x16 grid would do 65k slots of work for a
-# 64-particle scene. Only buckets holding live particles need stepping, and
+# The dense device formulation computes every grid slot — fine for an
+# accelerator's vector units, but a sequential host pass over a 64x64x16
+# grid would do 65k slots of work for a 64-particle scene. Only buckets holding live particles need stepping, and
 # only their 3x3 dilation can receive particles in a move; rows outside are
 # all-tombstone fixed points of both passes, so the sparse result is
 # bit-identical to the dense one (the tests enforce it).

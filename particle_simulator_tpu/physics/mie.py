@@ -16,7 +16,8 @@ reference's op order within f32 rounding; the oracle keeps the exact order):
 - leapfrog         v += (F/mass)*dt ; x += round(v*dt/box * u32max) as
                    wrap-around u32 addition                        (particle.cuh:105-123)
 
-All functions take/return plain arrays and work under vmap/pallas alike.
+All functions take/return plain arrays and work under jit, vmap and the
+NumPy shim of physics/host.py alike.
 Positions are u32 fixed point spanning the box; distances are computed by
 wrap-free u32 subtraction then scaled to meters in f32 (particle.cuh:41-47).
 """
@@ -56,11 +57,10 @@ _F32_HUGE = 3.4028235e38   # largest finite f32
 
 
 def mie_log_coeffs_scalars(sigma, eps, n, m):
-    """Log-domain pair-force constants from raw f32 scalars — THE shared
-    derivation for the jnp pair path (``mie_log_coeffs``) and both Pallas
-    kernels (ops/bucket_pallas.py, ops/allpairs_pallas.py read sigma/eps/n/m
-    from their params vector and call this inside the kernel body; it is
-    pure scalar math Mosaic evaluates once per dispatch).
+    """Log-domain pair-force constants from raw f32 scalars — the
+    derivation behind ``mie_log_coeffs``; pure scalar math evaluated once
+    per dispatch, so a hand-written pair kernel can call it on its own
+    parameter vector.
 
     The pair kernel needs F(r)/r, and the Mie law factors into two pure
     exponentials of lu = log(r^2/sigma^2):
@@ -90,8 +90,7 @@ def mie_log_coeffs_scalars(sigma, eps, n, m):
     particles, both forms are already NaN/inf — reference parity). All
     clamps are identity for every physically representable sigma/eps.
     """
-    # C = (n/(n-m)) * (n/m)^(m/(n-m))  (particle.cuh:54), in the exp/log
-    # form both Pallas kernels have always used
+    # C = (n/(n-m)) * (n/m)^(m/(n-m))  (particle.cuh:54), in exp/log form
     C = (n / (n - m)) * jnp.exp((m / (n - m)) * jnp.log(n / m))
     s = jnp.asarray(sigma, F32)
     degenerate = s * s < F32(_F32_TINY)
@@ -143,7 +142,7 @@ def pair_force_accum(xi, yi, tyi, xj, yj, tyj, p: SimParams, self_mask=None):
 
     This is the innermost hot loop (kernel_bucket.cuh:79-91 /
     kernel_compact.cuh:26-31) in data-parallel form: a (Ni, Nj) pair tile of
-    elementwise VPU math. Null j's and excluded pairs are masked with a safe
+    elementwise math. Null j's and excluded pairs are masked with a safe
     distance so no NaN leaks into masked lanes.
     """
     dx = _u32_signed_dist(xi[..., :, None], xj[..., None, :], p.box_width)

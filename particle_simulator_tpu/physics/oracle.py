@@ -4,7 +4,7 @@ from plain CPU loops" oracle the reference relies on, doc/project.typ:673-708).
 
 This module intentionally mirrors cuda_simulator/src/particle.cuh and
 kernel_compact.cuh operation-for-operation in float32. It is the ground truth
-the JAX/Pallas paths are tested against; it is NOT a performance path.
+the JAX paths are tested against; it is NOT a performance path.
 """
 
 from __future__ import annotations
@@ -34,63 +34,95 @@ def _f_force_repulsive(r, sigma, eps, n, m, C):
     return C * eps * m * np.power(sr, m) / r
 
 
+def _meta_scalars(meta: np.ndarray):
+    return (F32(meta["box_width"]), F32(meta["box_height"]), F32(meta["step_dt"]),
+            F32(meta["cursor_pos"][0]), F32(meta["cursor_pos"][1]),
+            F32(meta["cursor_size"]))
+
+
+def _external_force(x, y, meta):
+    """Cursor + wall force on u32 positions (kernel_compact.cuh:10-22,
+    particle.cuh:125-144)."""
+    sigma, eps, n, m, C = _params(meta)
+    bw, bh, _, cx, cy, csize = _meta_scalars(meta)
+    dxc = cx - x.astype(F32) / U32_MAX_F
+    dyc = cy - y.astype(F32) / U32_MAX_F
+    sq = dxc * dxc + dyc * dyc
+    inside = sq < csize * csize / F32(4.0)
+    mag = F32(8e-12) / (sq + F32(1.0))
+    fx = np.where(inside, np.where(dxc > 0, -mag, mag), F32(0.0))
+    fy = np.where(inside, np.where(dyc > 0, -mag, mag), F32(0.0))
+
+    in_left = x < HALF_U32
+    dist_x = np.where(in_left, x.astype(F32) / U32_MAX_F * bw, (U32_MAX_F - x.astype(F32)) / U32_MAX_F * bw)
+    fx = fx + np.where(in_left, 1.0, -1.0).astype(F32) * _f_force_repulsive(dist_x, sigma, eps, n, m, C)
+    in_bottom = y < HALF_U32
+    dist_y = np.where(in_bottom, y.astype(F32) / U32_MAX_F * bh, (U32_MAX_F - y.astype(F32)) / U32_MAX_F * bh)
+    fy = fy + np.where(in_bottom, 1.0, -1.0).astype(F32) * _f_force_repulsive(dist_y, sigma, eps, n, m, C)
+    return fx, fy
+
+
+def _pair_force(xi, yi, xj, yj, skip, meta):
+    """Summed Mie pair force on each i from its row of j's (kernel_compact.cuh:
+    26-31, particle.cuh:41-47,97-103): xi/yi shaped (Ni, 1), xj/yj and the
+    ``skip`` mask (pairs that contribute nothing: i itself, empty slots)
+    shaped (Ni, Nj)."""
+    sigma, eps, n, m, C = _params(meta)
+    bw, bh = F32(meta["box_width"]), F32(meta["box_height"])
+    ddx = np.where(xi < xj, (xj - xi).astype(F32), -((xi - xj).astype(F32))) / U32_MAX_F * bw
+    ddy = np.where(yi < yj, (yj - yi).astype(F32), -((yi - yj).astype(F32))) / U32_MAX_F * bh
+    r = np.where(skip, F32(1.0), np.hypot(ddx, ddy))
+    f_over_r = np.where(skip, F32(0.0), _f_force(r, sigma, eps, n, m, C) / r)
+    return (np.sum(f_over_r * ddx, axis=1, dtype=F32),
+            np.sum(f_over_r * ddy, axis=1, dtype=F32))
+
+
+def _leapfrog(parts, fx, fy, meta):
+    """Kick-drift update (particle.cuh:105-123) of ``parts`` under force
+    (fx, fy); returns the updated copy."""
+    bw, bh, dt = F32(meta["box_width"]), F32(meta["box_height"]), F32(meta["step_dt"])
+    nvx = parts["vx"].astype(F32) + (fx / MASS) * dt
+    nvy = parts["vy"].astype(F32) + (fy / MASS) * dt
+    ddx_fp = np.round((nvx * dt / bw) * U32_MAX_F)
+    ddy_fp = np.round((nvy * dt / bh) * U32_MAX_F)
+    out = parts.copy()
+    out["x"] = parts["x"].astype(np.uint32) + ddx_fp.astype(np.int64).astype(np.uint32)
+    out["y"] = parts["y"].astype(np.uint32) + ddy_fp.astype(np.int64).astype(np.uint32)
+    out["vx"] = nvx
+    out["vy"] = nvy
+    return out
+
+
 def oracle_step(parts: np.ndarray, meta: np.ndarray) -> np.ndarray:
     """One all-pairs physics step over a PARTICLE_DTYPE array (live particles
     only — callers pass compacted arrays, like the reference's CompactArray
     path). Returns the updated array. All math in f32."""
-    sigma, eps, n, m, C = _params(meta)
-    bw, bh = F32(meta["box_width"]), F32(meta["box_height"])
-    dt = F32(meta["step_dt"])
-    cx, cy = F32(meta["cursor_pos"][0]), F32(meta["cursor_pos"][1])
-    csize = F32(meta["cursor_size"])
+    return oracle_step_rows(parts, meta, np.arange(len(parts)))
 
+
+def oracle_step_rows(parts: np.ndarray, meta: np.ndarray, rows: np.ndarray,
+                     cands: np.ndarray | None = None) -> np.ndarray:
+    """``oracle_step`` for ``parts[rows]`` alone: each row feels cursor, walls
+    and the Mie force of every other particle of ``parts`` (``cands=None``,
+    the all-pairs step), or only of ``parts[cands[k]]`` — a (len(rows), K)
+    index array, -1 for no particle — which is how a cell-list step is
+    checked: the candidates are the 3x3 neighbour buckets' live slots.
+    Returns the updated ``parts[rows]``."""
     x = parts["x"].astype(np.uint32)
     y = parts["y"].astype(np.uint32)
-    vx = parts["vx"].astype(F32)
-    vy = parts["vy"].astype(F32)
-
+    rows = np.asarray(rows)
     with np.errstate(all="ignore"):
-        # cursor force (kernel_compact.cuh:10-22)
-        dxc = cx - x.astype(F32) / U32_MAX_F
-        dyc = cy - y.astype(F32) / U32_MAX_F
-        sq = dxc * dxc + dyc * dyc
-        inside = sq < csize * csize / F32(4.0)
-        mag = F32(8e-12) / (sq + F32(1.0))
-        fx = np.where(inside, np.where(dxc > 0, -mag, mag), F32(0.0))
-        fy = np.where(inside, np.where(dyc > 0, -mag, mag), F32(0.0))
-
-        # wall force (particle.cuh:125-144)
-        in_left = x < HALF_U32
-        dist_x = np.where(in_left, x.astype(F32) / U32_MAX_F * bw, (U32_MAX_F - x.astype(F32)) / U32_MAX_F * bw)
-        fx = fx + np.where(in_left, 1.0, -1.0).astype(F32) * _f_force_repulsive(dist_x, sigma, eps, n, m, C)
-        in_bottom = y < HALF_U32
-        dist_y = np.where(in_bottom, y.astype(F32) / U32_MAX_F * bh, (U32_MAX_F - y.astype(F32)) / U32_MAX_F * bh)
-        fy = fy + np.where(in_bottom, 1.0, -1.0).astype(F32) * _f_force_repulsive(dist_y, sigma, eps, n, m, C)
-
-        # all-pairs Mie force (kernel_compact.cuh:26-31, particle.cuh:41-47,97-103)
-        xi, xj = x[:, None], x[None, :]
-        yi, yj = y[:, None], y[None, :]
-        ddx = np.where(xi < xj, (xj - xi).astype(F32), -((xi - xj).astype(F32))) / U32_MAX_F * bw
-        ddy = np.where(yi < yj, (yj - yi).astype(F32), -((yi - yj).astype(F32))) / U32_MAX_F * bh
-        r = np.hypot(ddx, ddy)
-        np.fill_diagonal(r, F32(1.0))
-        f_over_r = _f_force(r, sigma, eps, n, m, C) / r
-        np.fill_diagonal(f_over_r, F32(0.0))
-        fx = fx + np.sum(f_over_r * ddx, axis=1, dtype=F32)
-        fy = fy + np.sum(f_over_r * ddy, axis=1, dtype=F32)
-
-        # leapfrog (particle.cuh:105-123)
-        nvx = vx + (fx / MASS) * dt
-        nvy = vy + (fy / MASS) * dt
-        ddx_fp = np.round((nvx * dt / bw) * U32_MAX_F)
-        ddy_fp = np.round((nvy * dt / bh) * U32_MAX_F)
-
-    out = parts.copy()
-    out["x"] = x + ddx_fp.astype(np.int64).astype(np.uint32)
-    out["y"] = y + ddy_fp.astype(np.int64).astype(np.uint32)
-    out["vx"] = nvx
-    out["vy"] = nvy
-    return out
+        fx, fy = _external_force(x[rows], y[rows], meta)
+        if cands is None:
+            xj, yj = x[None, :], y[None, :]
+            skip = rows[:, None] == np.arange(len(parts))[None, :]
+        else:
+            cands = np.asarray(cands)
+            skip = (cands < 0) | (cands == rows[:, None])
+            safe = np.where(cands < 0, 0, cands)
+            xj, yj = x[safe], y[safe]
+        pfx, pfy = _pair_force(x[rows][:, None], y[rows][:, None], xj, yj, skip, meta)
+        return _leapfrog(parts[rows], fx + pfx, fy + pfy, meta)
 
 
 def oracle_run(parts: np.ndarray, meta: np.ndarray, steps: int) -> np.ndarray:

@@ -2,9 +2,11 @@
 
 The reference's ``DataStructure::CompactArray`` kernel is an all-pairs O(N^2)
 force loop, one thread per particle (kernel_compact.cuh:4-42). Here the same
-computation is a single fused (N, N) pair tile of VPU math under jit; the Pallas
-tiled version (ops/allpairs_pallas.py) takes over for large N so the N x N
-intermediates never hit HBM.
+computation is one (N, N) pair tile of elementwise math reduced over j under
+jit. XLA stores that tile: one (N, N) f32 array per step, 1 GiB at 16k
+particles (chip_smoke.py's all-pairs phase prints ``memory_analysis``), which
+bounds how large a CompactArray scene fits. A tiled all-pairs kernel that
+reduces each tile in place would remove it (ROADMAP, "worth rewriting").
 
 A whole editor frame — ``steps_per_frame`` physics steps, default 100 — is ONE
 device dispatch: ``lax.fori_loop`` with a *traced* trip count so the editor can

@@ -2,7 +2,7 @@
 
 The reference's entire logging system is a macro printing ``[file:line]`` to
 stderr (cuda_simulator/src/lib/log.hpp:3-8). Same surface here, plus level
-filtering via the PS_TPU_LOG env var (debug|info|warn|error, default info).
+filtering via the PS_LOG env var (debug|info|warn|error, default info).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import os
 import sys
 
 _LEVELS = {"debug": 10, "info": 20, "warn": 30, "error": 40}
-_THRESHOLD = _LEVELS.get(os.environ.get("PS_TPU_LOG", "info").lower(), 20)
+_THRESHOLD = _LEVELS.get(os.environ.get("PS_LOG", "info").lower(), 20)
 
 
 def _emit(level: str, *args) -> None:

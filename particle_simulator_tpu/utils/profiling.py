@@ -3,9 +3,9 @@
 The reference has no in-tree profiler — just an stderr log macro
 (cuda_simulator/src/lib/log.hpp), ptxas register dumps, and one externally
 captured nsight trace analyzed in the report (doc/project.typ:710-724). This
-module gives the TPU build a first-class story:
+module gives this build a first-class story:
 
-- ``trace(dir)``: jax.profiler trace context (XLA/TPU timeline, viewable in
+- ``trace(dir)``: jax.profiler trace context (XLA host + device timeline, viewable in
   TensorBoard / Perfetto) around any code region;
 - ``StepMeter``: running steps/sec + particle-steps/sec counter, the number
   the benchmark and the engine daemon report;

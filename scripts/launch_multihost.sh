@@ -1,21 +1,17 @@
 #!/usr/bin/env bash
-# Multi-host engine launcher — the TPU-pod analog of the reference's SLURM
-# sbatch scripts (cuda_simulator/job.sh:11-22, which queue the CUDA binary on
+# Multi-host engine launcher — the analog of the reference's SLURM sbatch
+# scripts (cuda_simulator/job.sh:11-22, which queue the CUDA binary on
 # RTX 4090 / 3080 nodes).
 #
 # Every host runs the SAME engine daemon; jax.distributed stitches all hosts'
-# chips into one global device set and parallel/domain.py shards the bucket
+# GPUs into one global device set and parallel/domain.py shards the bucket
 # grid over the global ("dy", "dx") mesh — intra-host halo exchange rides
-# ICI, cross-host shard edges ride DCN. Host 0 owns the editor TCP
+# NVLink, cross-host shard edges the network. Host 0 owns the editor TCP
 # connection (see parallel/multihost.py).
 #
-# Usage — one invocation per host (ssh, sbatch task, or GKE container):
+# Usage — one invocation per host (ssh, sbatch task, or container):
 #   scripts/launch_multihost.sh <coordinator-host:port> <num_hosts> <host_id> \
 #       [extra daemon args...]
-#
-# On a Cloud TPU pod slice, where JAX can autodetect the topology from the
-# metadata server, skip the explicit coordinator:
-#   PS_TPU_DISTRIBUTED=1 python -m particle_simulator_tpu.engine.daemon --devices all ...
 #
 # Local 2-host smoke test (CPU, 2 virtual devices per "host", gloo over
 # localhost — the same path tests/test_parallel.py::
@@ -28,7 +24,7 @@
 set -euo pipefail
 
 if [ $# -lt 3 ]; then
-    sed -n '2,25p' "$0" | sed 's/^# \{0,1\}//'
+    sed -n '2,20p' "$0" | sed 's/^# \{0,1\}//'
     exit 2
 fi
 
@@ -37,8 +33,8 @@ NUM=$2
 ID=$3
 shift 3
 
-export PS_TPU_COORDINATOR="$COORD"
-export PS_TPU_NUM_PROCESSES="$NUM"
-export PS_TPU_PROCESS_ID="$ID"
+export PS_COORDINATOR="$COORD"
+export PS_NUM_PROCESSES="$NUM"
+export PS_PROCESS_ID="$ID"
 
 exec python -m particle_simulator_tpu.engine.daemon --devices all "$@"

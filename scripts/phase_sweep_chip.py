@@ -3,7 +3,7 @@
 The reference's headline demo is the interactive solid -> liquid -> gas
 transition (doc/project.typ:169-191, doc/StatesOfMatterTransitions.svg). This
 script replays it at 256k particles (the BASELINE.json config-4 scale) on the
-chip and CLASSIFIES each phase quantitatively via scenes/order.py:
+GPU and CLASSIFIES each phase quantitatively via scenes/order.py:
 
 - solid:  psi6 high (hex order), ~6 first-shell neighbors, clustered
 - liquid: psi6 well below solid, still condensed (neighbors >= 3.5)
@@ -12,7 +12,7 @@ chip and CLASSIFIES each phase quantitatively via scenes/order.py:
 Prints one JSON line per phase plus a final verdict line; exits non-zero if
 the ordering checks fail. Optionally writes a docs GIF of the sweep.
 
-Usage (TPU host):
+Usage (GPU host; --device 1 runs the CPU path for smoke tests):
     python scripts/phase_sweep_chip.py [--n-side 512] [--gif docs/images/phase_sweep.gif]
 """
 
@@ -52,12 +52,6 @@ def main(argv=None) -> int:
                     help="scale the per-phase step budgets (CPU smoke testing)")
     args = ap.parse_args(argv)
 
-    value = os.environ.get("JAX_PLATFORMS")
-    if value and all(p in ("cpu", "tpu", "gpu", "cuda") for p in value.split(",")):
-        import jax
-
-        jax.config.update("jax_platforms", value)
-
     from particle_simulator_tpu.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
@@ -88,8 +82,9 @@ def main(argv=None) -> int:
             sim.frame_async()
             if args.gif and (i + 1) % snap_every == 0:
                 snapshots.append(sim.state)
-        out = sim.read_frame()  # blocks on the final state
+        sim.sync()
         elapsed = time.perf_counter() - t0
+        out = sim.read_frame()
 
         op = order_parameters(out.particles, out.metadata.copy())
         results[label] = op

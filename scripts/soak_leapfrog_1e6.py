@@ -2,17 +2,17 @@
 
 The reference states leapfrog holds **>10 ns of sim-time at dt = 10 fs with
 no explosion** (doc/project.typ:209) — that is 1e6 steps, 100x the envelope
-the CI hardware test covers (tests/test_tpu_hw.py 10k steps = 0.1 ns). This
-soak runs the full 1e6 steps through the compiled Pallas frame runner on the
-real chip, with an oracle (all-pairs NumPy) energy readback every
-``--check-every`` steps, and prints one JSON line with the drift envelope.
+the CPU suite covers (tests/test_physics.py, 10k steps = 0.1 ns). This soak
+runs the full 1e6 steps through the engine's bucket frame program on the
+GPU (engine/platform.py), with an oracle (all-pairs NumPy) energy readback
+every ``--check-every`` steps, and prints one JSON line with the drift
+envelope.
 
-Scene: the CI hardware test's scene exactly (10 nm box, 8x8 hex lattice,
-2x bucket-occupancy headroom so no overflow drops skew the energy budget) —
-the reference's claim is about the integrator, not scale; scale throughput
-is bench.py's job.
+Scene: a 10 nm box, 8x8 hex lattice, 2x bucket-occupancy headroom so no
+overflow drops skew the energy budget — the reference's claim is about the
+integrator, not scale; scale throughput is bench.py's job.
 
-Usage (TPU host):
+Usage (GPU host):
     python scripts/soak_leapfrog_1e6.py [--steps 1000000] [--check-every 10000]
 """
 
@@ -37,8 +37,10 @@ def main(argv=None) -> int:
 
     import jax
 
+    from particle_simulator_tpu.engine import platform
     from particle_simulator_tpu.utils.compile_cache import enable_compilation_cache
 
+    dev = platform.require_gpu("soak_leapfrog_1e6")
     enable_compilation_cache()
 
     from particle_simulator_tpu.engine.state import (
@@ -46,18 +48,16 @@ def main(argv=None) -> int:
         state_from_numpy,
         state_to_numpy,
     )
-    from particle_simulator_tpu.io.frame import Frame
+    from particle_simulator_tpu.io.frame import DataStructure, Frame
     from particle_simulator_tpu.io.presets import ParticleLattice
     from particle_simulator_tpu.physics import oracle
     from particle_simulator_tpu.physics.bucket import (
         GridConfig,
         bucketize_numpy,
-        run_frame_bucket,
         state_to_grid,
     )
 
-    # the CI hardware test's stability scene (tests/test_tpu_hw.py): 10 nm box
-    # over 8x8 buckets, 8x8 hex lattice at 1.12 r0, dt = 10 fs
+    # 10 nm box over 8x8 buckets, 8x8 hex lattice at 1.12 r0, dt = 10 fs
     cfg = GridConfig(3, 3, 16)
     frame = Frame.new()
     meta = frame.metadata
@@ -70,19 +70,12 @@ def main(argv=None) -> int:
     rec = meta.copy()
 
     layout = bucketize_numpy(frame.particles, cfg)
-    dev = jax.devices()[0]
     state = jax.device_put(
         state_to_grid(state_from_numpy(layout, cfg.capacity), cfg), dev
     )
     p = SimParams.from_record(rec)
 
-    on_tpu = dev.platform != "cpu"
-    if on_tpu:
-        from particle_simulator_tpu.ops.bucket_pallas import run_frame_bucket_pallas
-
-        fn = jax.jit(run_frame_bucket_pallas)
-    else:
-        fn = jax.jit(run_frame_bucket)
+    fn = platform.frame_runner(dev.platform, DataStructure.MATRIX_BUCKETS)
 
     def energy(s):
         parts = state_to_numpy(s)
@@ -124,6 +117,7 @@ def main(argv=None) -> int:
         "live_end": n_end,
         "elapsed_s": round(elapsed, 1),
         "device": dev.platform,
+        "device_kind": dev.device_kind,
     }))
     return 0
 

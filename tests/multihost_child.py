@@ -1,12 +1,12 @@
 """Child process for the 2-process multihost test (test_parallel.py).
 
 Each process owns 2 virtual CPU devices; jax.distributed stitches them into a
-4-device global mesh (DCN-style coordinator + gloo collectives). The process
+4-device global mesh (local coordinator + gloo collectives). The process
 runs one sharded frame over the GLOBAL mesh and checks bit-identity against
 the single-device bucket path computed locally.
 
-Usage: python multihost_child.py <process_id>   (env: PS_TPU_COORDINATOR,
-PS_TPU_NUM_PROCESSES set by the parent)
+Usage: python multihost_child.py <process_id>   (env: PS_COORDINATOR,
+PS_NUM_PROCESSES set by the parent)
 """
 
 import os
@@ -18,7 +18,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 _flags = [f for f in os.environ.get("XLA_FLAGS", "").split() if "device_count" not in f]
 _flags.append("--xla_force_host_platform_device_count=2")
 os.environ["XLA_FLAGS"] = " ".join(_flags)
-os.environ["PS_TPU_PROCESS_ID"] = sys.argv[1]
+os.environ["PS_PROCESS_ID"] = sys.argv[1]
 
 import jax  # noqa: E402
 

@@ -90,7 +90,7 @@ def test_bucket_step_matches_allpairs_for_compact_droplet():
     # 10 steps: long enough to exercise force + integration interplay, short
     # enough that chaotic amplification of f32 summation-order ulps (the stiff
     # r^-14 force roughly doubles any perturbation each step) stays inside the
-    # physical envelope below on every backend (CPU and TPU fuse differently).
+    # physical envelope below on every backend (CPU and GPU fuse differently).
     for _ in range(10):
         flat = step_flat(flat, p)
         grid = step_grid(grid, p)

@@ -93,125 +93,6 @@ def test_halo_exchange_matches_tombstone_pad_interior():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_halo_exchange_x_rows_bit_identical_to_full_pad():
-    """exchange_halo_x_rows (the Pallas step's copy-light exchange) must ship
-    bit-identical data to exchange_halo followed by slicing the interior rows
-    and the two edge rows back out — including the x-halo corners the shipped
-    edge rows carry from the diagonal neighbor."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-    from particle_simulator_tpu.engine.state import ParticleState
-    from particle_simulator_tpu.parallel.domain import exchange_halo_x_rows
-
-    cfg = GridConfig(4, 4, 4)
-    state, params = scene_grid(cfg, nx=12, ny=12, vel=(0.0, 80.0))
-
-    mesh = make_mesh(n_devices=8)
-    ny, nx = mesh.devices.shape
-    spec = ParticleState(*([P("dy", "dx", None)] * 5))
-
-    def via_full(s):
-        padded = exchange_halo(s, ny, nx)
-        return (
-            ParticleState(*(a[1:-1] for a in padded)),
-            ParticleState(*(a[:1] for a in padded)),
-            ParticleState(*(a[-1:] for a in padded)),
-        )
-
-    def run(f):
-        g = shard_map(
-            f, mesh=mesh, in_specs=(spec,), out_specs=(spec, spec, spec)
-        )
-        return jax.tree.map(np.asarray, g(shard_state(state, mesh)))
-
-    ref, got = run(via_full), run(lambda s: exchange_halo_x_rows(s, ny, nx))
-    for part_ref, part_got, which in zip(ref, got, ("interior", "top", "bottom")):
-        for name, a, b in zip(part_ref._fields, part_ref, part_got):
-            np.testing.assert_array_equal(a, b, err_msg=f"{which}.{name}")
-
-
-@pytest.mark.parametrize("form", ["dus", "select"])
-@pytest.mark.parametrize("xpad", [1, 3])
-def test_refresh_x_cols_matches_repad(form, xpad):
-    """refresh_x_cols (the persistent-padded layout's per-step halo-column
-    update) must leave the padded grid bit-identical to re-padding its
-    interior from scratch — including the ty tombstone decode at the mesh
-    boundary — after the interior has changed (as a step changes it) and the
-    halo columns have gone stale. Both write forms (paired DUS vs the
-    fusable broadcast+select) and margin-padded layouts (xpad > 1) must
-    produce the same bytes."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-    import jax.numpy as jnp
-    from particle_simulator_tpu.engine.state import ParticleState
-    from particle_simulator_tpu.parallel.domain import pad_x_state, refresh_x_cols
-
-    cfg = GridConfig(4, 4, 4)
-    state, params = scene_grid(cfg, nx=12, ny=12, vel=(0.0, 80.0))
-
-    mesh = make_mesh(n_devices=8)
-    ny, nx = mesh.devices.shape
-    spec = ParticleState(*([P("dy", "dx", None)] * 5))
-
-    def body(s):
-        sp = pad_x_state(s, nx, xpad=xpad)
-        # perturb EVERY field everywhere (halo columns included — they are
-        # stale garbage the refresh must fully overwrite), like a step would
-        sp = ParticleState(
-            x=sp.x + jnp.uint32(3),
-            y=sp.y ^ jnp.uint32(0x55),
-            vx=sp.vx * jnp.float32(1.5) + jnp.float32(1.0),
-            vy=sp.vy - jnp.float32(2.0),
-            ty=jnp.where((sp.x % 7 == 0) & (sp.ty >= 0), 1, sp.ty),
-        )
-        got = refresh_x_cols(sp, nx, xpad=xpad, form=form)
-        interior = ParticleState(
-            *(a[:, xpad : a.shape[1] - xpad] for a in sp))
-        ref = pad_x_state(interior, nx, xpad=xpad)
-        # margin columns (xpad > 1) are untouched by the refresh but
-        # re-tombstoned by pad_x_state: compare them from ref's layout
-        return got, ref
-
-    run = shard_map(body, mesh=mesh, in_specs=(spec,), out_specs=(spec, spec))
-    got, ref = jax.tree.map(np.asarray, run(shard_state(state, mesh)))
-    # margin columns (xpad > 1) are permanently-dead filler the refresh
-    # never touches (the perturbation above scribbled on them; a real step
-    # leaves dead lanes alone) — compare halo + interior only. The gathered
-    # global array concatenates each device's padded width, so the margin
-    # positions repeat every w_local columns.
-    w_local = ref.x.shape[1] // nx
-    local_col = np.arange(ref.x.shape[1]) % w_local
-    keep = (local_col >= xpad - 1) & (local_col < w_local - (xpad - 1))
-    for name, a, b in zip(ref._fields, ref, got):
-        np.testing.assert_array_equal(a[:, keep], b[:, keep], err_msg=name)
-
-
-def test_sharded_frame_refresh_forms_bit_identical(monkeypatch):
-    """The full sharded Pallas runner must produce the same bytes whichever
-    halo-column refresh form is compiled in (PS_SHARD_REFRESH=dus|select|
-    refs): the select form exists so XLA can fuse the refresh into the next
-    step's pallas input DMA instead of materializing full-grid DUS copies
-    (the r4 HLO census's dominant per-step data movement); the refs form
-    goes further and never rewrites the halo columns in HBM between moves —
-    the fresh x/y neighbor columns ride a small extra kernel ref that the
-    step splices over the halo-column lanes in VMEM (ty is invariant
-    between moves, so its columns never go stale)."""
-    cfg = GridConfig(4, 4, 4, move_every=4)
-    state, params = scene_grid(cfg, nx=14, ny=14, vel=(0.0, 80.0))
-    params = params._replace(steps_per_frame=np.int32(10))
-    mesh = make_mesh(n_devices=4)
-
-    outs = {}
-    for form in ("dus", "select", "refs"):
-        monkeypatch.setenv("PS_SHARD_REFRESH", form)
-        fn = make_sharded_frame_fn(cfg, mesh, donate=False, kernel="pallas")
-        outs[form] = jax.tree.map(
-            np.asarray, fn(shard_state(state, mesh), params))
-    for other in ("select", "refs"):
-        for name, a, b in zip(outs["dus"]._fields, outs["dus"], outs[other]):
-            np.testing.assert_array_equal(a, b, err_msg=f"{other}:{name}")
-
-
 @pytest.mark.parametrize("n_devices", [2, 4, 8])
 def test_sharded_frame_matches_single_device(n_devices):
     """Sharded multi-frame run == single-device run, including the
@@ -245,16 +126,14 @@ def test_sharded_frame_matches_single_device(n_devices):
     np.testing.assert_allclose(ref.vy, got.vy, rtol=1e-3, atol=0.05)
 
 
-@pytest.mark.parametrize("kernel", ["jnp", "pallas"])
+@pytest.mark.parametrize("kernel", ["jnp"])
 def test_sharded_migration_across_boundary(kernel):
     """A particle drifting across a shard boundary is pulled by the new owner
     and dropped by the old one (pull-based migration via halo).
 
-    The particle carries a nonzero vy while crossing the dx boundary: the
-    pallas runner's per-step halo refresh skips velocity columns (forces
-    never read them) and tops them up only before the move — if that
-    pre-move refresh failed, the pulled particle would arrive with a stale
-    or garbage velocity and diverge immediately."""
+    The particle carries a nonzero vy while crossing the dx boundary: if the
+    halo the move pulls from carried a stale or garbage velocity, the pulled
+    particle would diverge immediately."""
     cfg = GridConfig(4, 4, 4, move_every=2)
     frame = Frame.new()
     meta = frame.metadata
@@ -272,7 +151,7 @@ def test_sharded_migration_across_boundary(kernel):
     ref = jax.tree.map(np.asarray, run_frame_bucket(state, params, move_every=cfg.move_every))
 
     mesh = make_mesh(n_devices=8)
-    fn = make_sharded_frame_fn(cfg, mesh, donate=False, kernel=kernel)
+    fn = make_sharded_frame_fn(cfg, mesh, donate=False)
     got = jax.tree.map(np.asarray, fn(shard_state(state, mesh), params))
 
     # a single particle feels no pair forces. Compare LIVE slots only
@@ -298,33 +177,11 @@ def test_sharded_migration_across_boundary(kernel):
     assert np.asarray(got.x).reshape(-1)[live][0] > np.uint32(0.55 * 2**32)
 
 
-def test_sharded_pallas_kernel_matches_single_device():
-    """Sharded runner with the Pallas step kernel (interpret mode on the CPU
-    mesh): halo-pad -> kernel -> interior slice must agree with the
-    single-device jnp path within reduction-order ulps."""
-    cfg = GridConfig(4, 4, 4, move_every=4)
-    state, params = scene_grid(cfg, nx=14, ny=14, vel=(0.0, 80.0))
-    params = params._replace(steps_per_frame=np.int32(6))
-
-    ref = jax.tree.map(
-        np.asarray, run_frame_bucket(state, params, move_every=cfg.move_every)
-    )
-
-    mesh = make_mesh(n_devices=4)
-    fn = make_sharded_frame_fn(cfg, mesh, donate=False, kernel="pallas")
-    got = jax.tree.map(np.asarray, fn(shard_state(state, mesh), params))
-
-    np.testing.assert_array_equal(ref.ty, got.ty)
-    np.testing.assert_allclose(ref.x.astype(np.int64), got.x.astype(np.int64), rtol=0, atol=8)
-    np.testing.assert_allclose(ref.vx, got.vx, rtol=1e-3, atol=0.05)
-
-
 @pytest.mark.parametrize("n_devices", [2, 4, 8])
-@pytest.mark.parametrize("impl", ["direct", "pallas", "pallas-chunked"])
+@pytest.mark.parametrize("impl", ["direct"])
 def test_sharded_move_pass_bit_identical(n_devices, impl):
-    """One isolated migration pass: the shard-aware direct move (and its
-    pallas place variant) over a mesh must be BIT-identical to the
-    single-device bucket_move — including cross-shard migration, overflow
+    """One isolated migration pass: the shard-aware direct move over a mesh
+    must be BIT-identical to the single-device bucket_move — including cross-shard migration, overflow
     drops, and the reference's pull scan order (kernel_bucket.cuh:5-39).
     Drifted positions are synthesized so many particles target a different
     bucket (some across shard boundaries) and buckets overflow."""
@@ -372,26 +229,12 @@ def test_sharded_move_pass_bit_identical(n_devices, impl):
         row_offset = jax.lax.axis_index(AXIS_Y).astype(jnp.int32) * ly
         col_offset = jax.lax.axis_index(AXIS_X).astype(jnp.int32) * lx
         padded = exchange_halo(s, ny, nx)
-        if impl.startswith("pallas"):
-            from particle_simulator_tpu.ops.bucket_pallas import (
-                bucket_move_pallas_halo,
-            )
-
-            # "pallas-chunked": the column skip's rounded lane layout —
-            # (lx+2)*cap is never chunk-divisible at these shard sizes, so
-            # this exercises the appended-tombstone-lane path end to end
-            return bucket_move_pallas_halo(
-                padded, cfg.bx_log2, cfg.by_log2, row_offset, col_offset,
-                interpret=True,
-                lane_chunks=2 if impl == "pallas-chunked" else 1,
-            )
         return bucket_move_direct_halo(
             padded, cfg.bx_log2, cfg.by_log2, row_offset, col_offset
         )
 
     spec = ParticleState(*([P(AXIS_Y, AXIS_X, None)] * 5))
-    fn = shard_map(body, mesh=mesh, in_specs=(spec,), out_specs=spec,
-                   check_vma=False)
+    fn = shard_map(body, mesh=mesh, in_specs=(spec,), out_specs=spec)
     got = jax.tree.map(np.asarray, fn(shard_state(state, mesh)))
 
     for name, a, b in zip(ref._fields, ref, got):
@@ -425,8 +268,8 @@ def test_multihost_two_process_sharded_frame():
 
     child = Path(__file__).parent / "multihost_child.py"
     env = dict(os.environ)
-    env["PS_TPU_COORDINATOR"] = f"127.0.0.1:{port}"
-    env["PS_TPU_NUM_PROCESSES"] = "2"
+    env["PS_COORDINATOR"] = f"127.0.0.1:{port}"
+    env["PS_NUM_PROCESSES"] = "2"
     procs = [
         subprocess.Popen(
             [sys.executable, str(child), str(i)],
@@ -489,9 +332,9 @@ def test_multihost_daemon_editor_end_to_end():
     daemons = []
     for i in range(2):
         env = dict(base_env)
-        env["PS_TPU_COORDINATOR"] = f"127.0.0.1:{coord_port}"
-        env["PS_TPU_NUM_PROCESSES"] = "2"
-        env["PS_TPU_PROCESS_ID"] = str(i)
+        env["PS_COORDINATOR"] = f"127.0.0.1:{coord_port}"
+        env["PS_NUM_PROCESSES"] = "2"
+        env["PS_PROCESS_ID"] = str(i)
         daemons.append(subprocess.Popen(
             [sys.executable, "-m", "particle_simulator_tpu.engine.daemon",
              "--devices", "all", "--addr", f"127.0.0.1:{editor_port}",
@@ -523,10 +366,9 @@ def test_multihost_daemon_editor_end_to_end():
             assert "sharding over a (2, 2) device mesh" in err
 
 
-@pytest.mark.parametrize("impl", ["direct", "pallas", "pallas-chunked"])
+@pytest.mark.parametrize("impl", ["direct"])
 def test_sharded_move_pass_sparse_scene_bit_identical(impl):
-    """The sharded move's dead-neighborhood skip (_place_edge_kernel flags):
-    a scene confined to one corner leaves whole shards (and blocks within
+    """A scene confined to one corner leaves whole shards (and blocks within
     live shards) with no kept candidate — their outputs must equal the pull
     oracle's all-tombstone layout bit-for-bit, across a 4-device mesh."""
     from jax import shard_map
@@ -569,87 +411,13 @@ def test_sharded_move_pass_sparse_scene_bit_identical(impl):
         row_offset = jax.lax.axis_index(AXIS_Y).astype(jnp.int32) * ly
         col_offset = jax.lax.axis_index(AXIS_X).astype(jnp.int32) * lx
         padded = exchange_halo(s, ny, nx)
-        if impl.startswith("pallas"):
-            from particle_simulator_tpu.ops.bucket_pallas import (
-                bucket_move_pallas_halo,
-            )
-
-            # "pallas-chunked": the column skip's rounded lane layout —
-            # (lx+2)*cap is never chunk-divisible at these shard sizes, so
-            # this exercises the appended-tombstone-lane path end to end
-            return bucket_move_pallas_halo(
-                padded, cfg.bx_log2, cfg.by_log2, row_offset, col_offset,
-                interpret=True,
-                lane_chunks=2 if impl == "pallas-chunked" else 1,
-            )
         return bucket_move_direct_halo(
             padded, cfg.bx_log2, cfg.by_log2, row_offset, col_offset
         )
 
     spec = ParticleState(*([P(AXIS_Y, AXIS_X, None)] * 5))
-    fn = shard_map(body, mesh=mesh, in_specs=(spec,), out_specs=spec,
-                   check_vma=False)
+    fn = shard_map(body, mesh=mesh, in_specs=(spec,), out_specs=spec)
     got = jax.tree.map(np.asarray, fn(shard_state(state, mesh)))
 
     for name, a, b in zip(ref._fields, ref, got):
         np.testing.assert_array_equal(a, b, err_msg=f"field {name} ({impl})")
-
-
-def test_x_pad_for_chunks_production_sizes():
-    """The x-pad resolver (parallel/domain.py x_pad_for_chunks) finds an
-    affordable tombstone margin at the config-5 production shard widths
-    (1024x1024x16 over a v5p-8's (4,2) mesh -> lx=512) and correctly reports
-    infeasible combinations as None."""
-    from particle_simulator_tpu.parallel.domain import x_pad_for_chunks
-
-    for C in (2, 4, 8):
-        xpad = x_pad_for_chunks(512, 16, C)
-        assert xpad is not None, f"C={C} infeasible at lx=512 cap=16"
-        w = 512 + 2 * xpad
-        assert w % C == 0 and (w * 16 // C) % 128 == 0
-        assert 2 * xpad <= 512 // 4  # waste budget
-    # unchunked always costs the plain one-column halo
-    assert x_pad_for_chunks(512, 16, 1) == 1
-    # a width too small to chunk affordably -> None (caller falls back)
-    assert x_pad_for_chunks(32, 8, 2) is None
-
-
-@pytest.mark.parametrize("form", ["select", "refs"])
-def test_sharded_pallas_lane_chunks_bit_identical(form, monkeypatch):
-    """The sharded Pallas runner with the lane-chunk column skip
-    (lane_chunks > 1: tombstone-margin x-pad + chunked step kernel) must be
-    BIT-identical to the unchunked sharded runner — the skip only gates
-    which tiles compute (VERDICT r3 item 3: the +47% sparse-scene win now
-    reaches the multi-chip path). Scene: a lattice confined to one quarter
-    of the box, so column chunks actually die.
-
-    ``form="refs"`` additionally runs the chunked side with the in-kernel
-    halo-column splice (the C > 1 dynamic-roll path) — the unchunked
-    reference stays on the select form, so this cross-checks forms AND
-    chunking at once."""
-    cfg = GridConfig(8, 2, 8, move_every=4)  # 256x4 buckets, cap 8
-    frame = Frame.new()
-    meta = frame.metadata
-    # lattice in the left third of the box: live columns span < half the
-    # grid, so the right-hand lane chunk of every shard is dead
-    lat = ParticleLattice((24, 6), distance_factor=1.3, velocity=(0.0, 40.0))
-    lat.hex_square(frame, (meta.box_width * 0.18, meta.box_height / 2),
-                   rng=np.random.default_rng(7))
-    layout = bucketize_numpy(frame.particles, cfg)
-    state = state_to_grid(state_from_numpy(layout, cfg.capacity), cfg)
-    params = SimParams.from_record(meta.copy())._replace(steps_per_frame=np.int32(6))
-
-    mesh = make_mesh(n_devices=4)  # (2, 2): lx = 128 -> xpad 16, C=2 feasible
-    from particle_simulator_tpu.parallel.domain import x_pad_for_chunks
-
-    assert x_pad_for_chunks(128, 8, 2) is not None
-
-    monkeypatch.setenv("PS_SHARD_REFRESH", "select")
-    plain = make_sharded_frame_fn(cfg, mesh, donate=False, kernel="pallas")
-    monkeypatch.setenv("PS_SHARD_REFRESH", form)
-    chunked = make_sharded_frame_fn(cfg, mesh, donate=False, kernel="pallas",
-                                    lane_chunks=2)
-    ref = jax.tree.map(np.asarray, plain(shard_state(state, mesh), params))
-    got = jax.tree.map(np.asarray, chunked(shard_state(state, mesh), params))
-    for f in state._fields:
-        np.testing.assert_array_equal(getattr(ref, f), getattr(got, f), err_msg=f)

@@ -122,7 +122,7 @@ def test_simulator_fast_path_matches_slow_path():
         _frames_equal(fast.read_frame(), slow.read_frame())
 
     # explicit ticket round-trip (the daemon's enqueue/ship split)
-    t = fast.start_readback(hint=True)
+    t = fast.start_readback()
     assert isinstance(t, ReadbackTicket) and t.packed is not None
     _frames_equal(fast.read_frame(t), slow.read_frame())
 
